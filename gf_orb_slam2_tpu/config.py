@@ -197,7 +197,7 @@ class TrackingConfig:
     proj_search_radius: float = 7.0
     # pose optimizer: rounds × iters with chi2 gating. Reference runs 4×10
     # (Optimizer.cc:248); with LM step acceptance the solve converges well
-    # inside 3×8 (ATE-validated on the rendered real-texture sequences —
+    # inside 3×8 (ATE-validated on the rendered textured sequences —
     # the scan length is pure per-frame device latency, 2 solves/frame)
     pose_opt_rounds: int = 3
     pose_opt_iters: int = 8
@@ -212,10 +212,9 @@ class TrackingConfig:
     # run local mapping + loop closing on a background worker (reference
     # architecture: LocalMapping and LoopClosing threads, System.cc:113-124);
     # synchronous track_* calls always settle the map first. Smooths the
-    # worst-case (KF-frame) latency but on a SINGLE shared chip the mapper's
-    # device programs contend with every tracking frame (measured: median
-    # 25.9 -> 33.7 ms/frame, p99 much better) — default off; enable on
-    # multi-chip deployments where mapping runs on its own slice
+    # worst-case (KF-frame) latency, but the mapper's device programs then
+    # share the device with every tracking frame (their contention on the
+    # GPU is not measured yet) — default off; bench.py runs it on
     async_mapping: bool = False
 
 
@@ -314,9 +313,9 @@ class SystemConfig:
     use_viewer: bool = False
     localization_only: bool = False  # reference: ActivateLocalizationMode
     # BoW vocabulary (reference: System(vocFile,...) System.cc:78-84).
-    # None → the shipped 10k-word asset (gf_orb_slam2_tpu/assets/vocab10k.npz,
-    # built by tools/build_vocabulary_asset.py); "" → disable (falls back to
-    # lazy self-training, the round-1 behavior); or a path to a .npz.
+    # None → the largest shipped asset (gf_orb_slam2_tpu/assets/vocab100k.npz,
+    # else vocab10k.npz; built by tools/build_vocabulary_asset.py); "" →
+    # disable (falls back to lazy self-training); or a path to a .npz.
     vocabulary_path: "str | None" = None
 
     def replace(self, **kw) -> "SystemConfig":

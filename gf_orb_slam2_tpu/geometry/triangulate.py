@@ -23,8 +23,8 @@ def triangulate_dlt(P1, P2, x1, x2):
     Solves the inhomogeneous normal equations (w=1 gauge): minimize
     ||A[X;1]||² → (A₃ᵀA₃)X = -A₃ᵀa₄, a batched closed-form 3x3 solve
     (utils/linalg3.py) — the reference's per-point 4x4 SVD
-    (LocalMapping.cc:~500) is a LAPACK call TPUs execute poorly at
-    [10k×4×4]; genuinely-at-infinity points fail the cheirality gate anyway.
+    (LocalMapping.cc:~500) would be a batched [10k×4×4] SVD call; the
+    closed form fuses into elementwise work. Genuinely-at-infinity points fail the cheirality gate anyway.
     """
     from gf_orb_slam2_tpu.utils.linalg3 import solve3
 

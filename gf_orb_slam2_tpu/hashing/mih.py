@@ -1,6 +1,6 @@
 """Multi-index hashing of the local map — ctypes binding + OTS controller.
 
-TPU-native replacement for MultiIndexHashing (reference: src/Hashing.cc,
+JAX-side replacement for MultiIndexHashing (reference: src/Hashing.cc,
 include/Hashing.h — 32 tables × 256 buckets over 256-bit descriptors,
 bounded buckets of 20, NUM_ACTIVE_HASHTABLES=8 with online table selection
 and a latency feedback controller `updateDynamics` against the
@@ -17,7 +17,6 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import tempfile
 from typing import Optional
 
 import numpy as np
@@ -29,15 +28,20 @@ def _build_lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
-    src = os.path.join(os.path.dirname(__file__), "..", "native", "mih.cpp")
-    cache = os.path.join(tempfile.gettempdir(), "gf_orb_slam2_tpu_native")
-    os.makedirs(cache, exist_ok=True)
-    lib_path = os.path.join(cache, "libmih.so")
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = os.path.join(pkg, "native", "mih.cpp")
+    build = os.path.join(os.path.dirname(pkg), "build")
+    os.makedirs(build, exist_ok=True)
+    lib_path = os.path.join(build, "libmih.so")
     if (not os.path.exists(lib_path)
             or os.path.getmtime(lib_path) < os.path.getmtime(src)):
+        # build beside the target and rename: concurrent builders (test
+        # workers) never load a half-written library
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
         subprocess.check_call(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src, "-o", lib_path]
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp]
         )
+        os.replace(tmp, lib_path)
     lib = ctypes.CDLL(lib_path)
     lib.mih_create.restype = ctypes.c_void_p
     lib.mih_create.argtypes = [ctypes.c_int] * 3

@@ -1,6 +1,6 @@
 """Sim3 RANSAC between two keyframes' matched map points.
 
-TPU-native replacement for Sim3Solver (reference: src/Sim3Solver.cc —
+JAX replacement for Sim3Solver (reference: src/Sim3Solver.cc —
 sequential RANSAC, 3-point Horn absolute orientation per hypothesis
 (ComputeSim3 :~229), reprojection inlier check (CheckInliers :335),
 fixed-scale mode for stereo/RGB-D). All hypotheses run as ONE batched
@@ -132,8 +132,8 @@ def solve_sim3(
 
         ac = (a - mu_a) * w[:, None]
         bc = (b - mu_b) * w[:, None]
-        # f32-pinned contractions: TPU default bf16 corrupts the 3x3 Horn
-        # covariance / rotation recovery (same hazard class as the epipolar
+        # f32-pinned contractions: reduced-precision (TF32/bf16) products
+        # corrupt the 3x3 Horn covariance / rotation recovery (same hazard class as the epipolar
         # F in local_mapping — see utils/precision.py)
         H = _es("ni,nj->ij", ac, b - mu_b)
         U, S, Vt = jnp.linalg.svd(H)

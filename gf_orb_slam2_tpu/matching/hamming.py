@@ -1,9 +1,8 @@
 """Hamming distance over 256-bit binary descriptors (uint32[...,8]).
 
 Replaces ORBmatcher::DescriptorDistance (reference: src/ORBmatcher.cc:1768 —
-the classic popcount bit-trick on 8 words) with whole-matrix XOR+popcount on
-the VPU: one [N,M] distance matrix per call instead of per-pair scalar loops.
-256 bits × 1024×1024 pairs ≈ 8M int32 ops — microseconds on TPU.
+the classic popcount bit-trick on 8 words) with whole-matrix XOR+popcount:
+one [N,M] distance matrix per call instead of per-pair scalar loops.
 """
 from __future__ import annotations
 
@@ -16,13 +15,10 @@ MAX_DIST = 256
 def distance_matrix(da, db):
     """da: [N,8] uint32, db: [M,8] uint32 → [N,M] int32 Hamming distances.
 
-    On TPU with tileable shapes this routes to the Pallas kernel
-    (ops/pallas_hamming.py): the XLA formulation materializes the [N,M,8]
-    XOR tensor in HBM (~128 MB at 4096×1024), the kernel tiles it through
-    VMEM so HBM traffic is descriptor reads + the [N,M] result."""
-    from gf_orb_slam2_tpu.ops.pallas_hamming import distance_matrix_pallas
-
-    return distance_matrix_pallas(da, db)
+    Plain XOR → popcount → sum over the 8 words; XLA fuses the chain into
+    its reduction, so the [N,M,8] intermediate never reaches device memory."""
+    x = jnp.bitwise_xor(da[:, None, :], db[None, :, :])
+    return jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
 
 
 def distance_pairs(da, db):

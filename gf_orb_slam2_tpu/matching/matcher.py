@@ -1,9 +1,9 @@
 """Descriptor matching: projection search, frame↔frame, rotation consistency.
 
-TPU-native replacement for ORBmatcher (reference: src/ORBmatcher.cc). The
+JAX replacement for ORBmatcher (reference: src/ORBmatcher.cc). The
 reference prunes candidates through a 64x48 per-frame grid
-(Frame::GetFeaturesInArea, src/Frame.cc:593) then loops per point; on TPU we
-evaluate the FULL masked [P,N] Hamming matrix in one shot — the grid
+(Frame::GetFeaturesInArea, src/Frame.cc:593) then loops per point; on the
+device we evaluate the FULL masked [P,N] Hamming matrix in one shot — the grid
 bookkeeping costs more than the brute-force matrix at these sizes.
 
 Covered reference entry points:
@@ -12,7 +12,7 @@ Covered reference entry points:
 - SearchForInitialization (:520)                    → `match_window`
 - SearchByBoW (:270/:635)                           → `match_all` (brute force
   replaces BoW-node pruning; the vocabulary is only needed for loop/reloc
-  retrieval, not match pruning, on TPU)
+  retrieval, not match pruning, here)
 - rotation-histogram filter ComputeThreeMaxima (:1723) → `rotation_consistency`
 """
 from __future__ import annotations
@@ -74,7 +74,7 @@ def match_all(
     """Brute-force best match a→b with ratio test (and optional mutual check).
 
     Replaces SearchByBoW's vocabulary-node-pruned loops (ORBmatcher.cc:270):
-    at TPU speeds the full Hamming matrix is cheaper than FeatureVector
+    on the device the full Hamming matrix is cheaper than FeatureVector
     bookkeeping.
     """
     mask = valid_a[:, None] & valid_b[None, :]

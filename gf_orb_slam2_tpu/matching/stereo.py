@@ -1,11 +1,11 @@
 """Rectified stereo matching: row-band descriptor match + SAD subpixel refine.
 
-TPU-native replacement for Frame::ComputeStereoMatches (reference:
+JAX replacement for Frame::ComputeStereoMatches (reference:
 src/Frame.cc:889) and the delayed/alternative per-point variants
 (`ComputeStereoMatch_OnePoint` Frame.cc:1080, `ComputeStereoMatches_Undistorted`
 :1167, `PrepareStereoCandidates` Frame.h:230). The reference's "delayed"
 machinery exists because CPU stereo matching is expensive enough to amortize
-per-point; on TPU the whole frame's [N_l, N_r] masked Hamming matrix plus a
+per-point; on the device the whole frame's [N_l, N_r] masked Hamming matrix plus a
 batched SAD refinement is a single cheap program, so we always match all
 features at once — the delayed path collapses into this kernel (cited for
 capability parity, not copied).
@@ -16,7 +16,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 
 from gf_orb_slam2_tpu.matching import hamming
@@ -100,13 +99,10 @@ def _sad_curve(img_l, img_r, uv_l, uv_r):
     W = SAD_HALF
 
     def patch(img, yc, xc, half_w):
-        # row gather + column one-hot contraction (direct element gathers
-        # lower to scalar loops on TPU; see ops/orb.py patches_at_flat)
+        # direct element gather (bit-exact; see ops/orb.py patches_at_flat)
         ys = jnp.clip(yc[:, None] + jnp.arange(-W, W + 1)[None, :], 0, h - 1)
         xs = jnp.clip(xc[:, None] + jnp.arange(-half_w, half_w + 1)[None, :], 0, w - 1)
-        rows = img[ys]  # [N, 11, W_img]
-        onehot = jax.nn.one_hot(xs, w, dtype=img.dtype)  # [N, 2*half_w+1, W_img]
-        return jnp.einsum("nrw,nsw->nrs", rows, onehot)  # [N, 11, 2*half_w+1]
+        return img[ys[:, :, None], xs[:, None, :]]  # [N, 11, 2*half_w+1]
 
     yl = jnp.round(uv_l[:, 1]).astype(jnp.int32)
     xl = jnp.round(uv_l[:, 0]).astype(jnp.int32)

@@ -1,6 +1,6 @@
 // Multi-index hashing over 256-bit ORB descriptors — native host runtime.
 //
-// TPU-native framework's C++ replacement for the reference's MultiIndexHashing
+// This framework's C++ replacement for the reference's MultiIndexHashing
 // (reference: src/Hashing.cc / include/Hashing.h): the descriptor is split
 // into `n_tables` substrings of `bits_per_substring` bits; each substring
 // indexes one table of 2^bits buckets; buckets are bounded rings
@@ -9,7 +9,7 @@
 // online table selection chooses which — Hashing.h:63).
 //
 // This is deliberately host-side native code: hash-table mutation is pointer-
-// chasing control flow, the worst possible TPU workload, while the descriptor
+// chasing control flow, the worst possible device workload, while the descriptor
 // Hamming re-ranking of the candidates runs on-device (matching/hamming.py).
 // Built as a plain shared library, bound via ctypes (hashing/mih.py).
 

@@ -1,12 +1,12 @@
 """FAST-9/16 corner detection as dense fused-elementwise XLA ops.
 
-TPU-native replacement for the reference's three FAST backends: plain OpenCV
+JAX replacement for the reference's three FAST backends: plain OpenCV
 CPU FAST (src/ORBextractor.cc:767 ComputeKeyPointsOctTree), the CUDA tiled
 kernel `tileCalcKeypoints_kernel` (src/cuda/Fast_gpu.cu:284) and the NEON
 SIMD path (src/FAST_NEON.cc). The segment test is evaluated for EVERY pixel
 of EVERY (padded) pyramid level at once.
 
-Formulation notes (they matter a lot on TPU):
+Formulation notes:
 - neighbors come from STATIC SLICES of a once-padded image — `jnp.roll`
   lowers to concats that break XLA fusion and each unfused kernel carries
   fixed overhead; slices feeding elementwise chains fuse into one kernel;

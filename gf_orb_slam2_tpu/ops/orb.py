@@ -1,15 +1,15 @@
 """ORB orientation (intensity centroid) and rBRIEF descriptors, batched.
 
-TPU-native replacement for the reference's IC_Angle / computeOrbDescriptor
+JAX replacement for the reference's IC_Angle / computeOrbDescriptor
 (src/ORBextractor.cc:76/:107) and their CUDA twins `IC_Angle_kernel`
 (src/cuda/Fast_gpu.cu:403, warp-reduced patch moments) and `calcOrb_kernel`
 (src/cuda/Orb_gpu.cu:67, 32 threads/keypoint).
 
-Design differences (deliberately TPU-first, see SURVEY.md §7.1):
-- IC angle: instead of per-keypoint patch reductions, the patch moments m10
-  and m01 are computed for EVERY pixel as two 31x31 convolutions (one conv
-  per moment — MXU work), then sampled at keypoint locations with a single
-  gather. No per-keypoint loops, no warp reductions.
+Design differences (see SURVEY.md §7.1):
+- IC angle: the production path (angles_and_descriptors_flat) reduces one
+  gathered patch per selected keypoint; the dense variant (moment_maps)
+  computes m10/m01 for EVERY pixel as two 31x31 convolutions and samples
+  them at keypoint locations. No per-keypoint loops, no warp reductions.
 - rBRIEF: the reference rotates a fixed 256-pair pattern per keypoint and
   reads pixels with nearest rounding. We do the same math as one batched
   gather of [N, 512] nearest-neighbor samples from the blurred image, then a
@@ -24,6 +24,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from gf_orb_slam2_tpu.utils.precision import einsum
 
 PATCH = 31
 HALF = PATCH // 2  # 15
@@ -143,9 +145,11 @@ def gaussian_blur(img, ksize=7, sigma=2.0):
     kx = g[None, None, None, :]
     ky = g[None, None, :, None]
     x = jax.lax.conv_general_dilated(
-        x, kx, (1, 1), "SAME", dimension_numbers=("NCHW", "OIHW", "NCHW"))
+        x, kx, (1, 1), "SAME", dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        precision=jax.lax.Precision.HIGHEST)
     x = jax.lax.conv_general_dilated(
-        x, ky, (1, 1), "SAME", dimension_numbers=("NCHW", "OIHW", "NCHW"))
+        x, ky, (1, 1), "SAME", dimension_numbers=("NCHW", "OIHW", "NCHW"),
+        precision=jax.lax.Precision.HIGHEST)
     return x.reshape(batch + (h, w))
 
 
@@ -174,9 +178,8 @@ def brief_descriptors_batched(imgs_blur, yx, angles):
 
 # ---------------------------------------------------------------------------
 # Patch-based fused path: one [n,37,37] patch extraction feeds IC-angle
-# moments and rBRIEF sampling. Full-image 31x31 moment convolutions and
-# pyramid-wide blurs are pathologically slow on backends where channels-1
-# convs can't use the MXU; the patch formulation is gather + einsum work.
+# moments and rBRIEF sampling, so only the selected keypoints pay — no
+# full-image 31x31 moment convolutions or pyramid-wide blurs.
 PATCH_R = 18  # 37x37 raw patch: 15 (moments) + blur margin 3
 N_ANGLE_BINS = 32  # rotation quantization for the descriptor lookup table
 
@@ -199,20 +202,13 @@ def _blur_patch(patch, ksize=7, sigma=2.0):
 
 
 def patches_at_flat(stack, li, yx):
-    """Extract [n,37,37] raw patches for keypoints with per-item level li.
-
-    Formulated as a row gather followed by a column one-hot contraction:
-    a direct [n,37,37] element gather lowers to scalar-gather loops on TPU
-    (measured 14.8 ms for n=800 on v5e vs 1.8 ms for this form — the row
-    gather moves whole [37,W] slabs and the column pick rides the MXU).
-    """
+    """Extract [n,37,37] raw patches for keypoints with per-item level li:
+    one direct element gather, bit-exact on every backend."""
     h, w = stack.shape[-2:]
     d = jnp.arange(-PATCH_R, PATCH_R + 1)
     y = jnp.clip(yx[:, 0:1].astype(jnp.int32) + d[None, :], 0, h - 1)  # [n,37]
     x = jnp.clip(yx[:, 1:2].astype(jnp.int32) + d[None, :], 0, w - 1)
-    rows = stack[li[:, None], y]  # [n,37,W]
-    onehot = jax.nn.one_hot(x, w, dtype=stack.dtype)  # [n,37,W]
-    return jnp.einsum("nrw,nsw->nrs", rows, onehot)  # [n,37,37]
+    return stack[li[:, None, None], y[:, :, None], x[:, None, :]]
 
 
 @functools.lru_cache()
@@ -222,7 +218,7 @@ def _sample_matrix(n_bins=N_ANGLE_BINS):
     Folds the 7x7 Gaussian blur AND the rotated-pattern nearest-neighbor
     sampling into one linear map: raw 37x37 patch → blurred intensity at
     every rBRIEF sample point for every quantized rotation. The descriptor
-    read then becomes a single [n,1369]x[1369,n_bins*512] matmul (MXU) plus
+    read then becomes a single [n,1369]x[1369,n_bins*512] matmul plus
     a per-keypoint bin select — no data-dependent gathers. The ORB paper
     itself quantizes orientation into 12° steps with a pattern lookup table;
     n_bins=32 (11.25°) matches that design.
@@ -257,8 +253,8 @@ def angles_and_descriptors_flat(stack, li, yx):
     patch = patches_at_flat(stack, li, yx)  # [n,37,37]
     center31 = patch[..., 3:34, 3:34]
     kx, ky = _ic_kernels()
-    m10 = jnp.einsum("nab,ab->n", center31, jnp.asarray(kx))
-    m01 = jnp.einsum("nab,ab->n", center31, jnp.asarray(ky))
+    m10 = einsum("nab,ab->n", center31, jnp.asarray(kx))
+    m01 = einsum("nab,ab->n", center31, jnp.asarray(ky))
     angles = jnp.arctan2(m01, m10)
 
     # blur + rotated sampling as ONE matmul against the lookup matrix
@@ -272,8 +268,7 @@ def angles_and_descriptors_flat(stack, li, yx):
     )  # [n, A*512]
     A = N_ANGLE_BINS
     bins = jnp.mod(jnp.round(angles / (2 * jnp.pi / A)).astype(jnp.int32), A)
-    onehot = jax.nn.one_hot(bins, A, dtype=jnp.float32)
-    vals = jnp.einsum("nas,na->ns", vals_all.reshape(n, A, 512), onehot)
+    vals = vals_all.reshape(n, A, 512)[jnp.arange(n), bins]
     vals = vals.reshape(n, 256, 2)
     bits = (vals[..., 0] < vals[..., 1]).astype(jnp.uint32)
     bits = bits.reshape(n, 8, 32)

@@ -1,6 +1,6 @@
 """Spatially-uniform keypoint selection: per-cell top-K + ranked global top-N.
 
-TPU-native replacement for the reference's recursive quadtree redistribution
+JAX replacement for the reference's recursive quadtree redistribution
 (src/ORBextractor.cc DistributeOctTree, called from ComputeKeyPointsOctTree
 :767) and the per-30px-cell FAST with threshold fallback 20→7. The quadtree
 is inherently sequential; instead we:

@@ -1,6 +1,6 @@
 """Local bundle adjustment: Schur-complement Levenberg-Marquardt, fully batched.
 
-TPU-native replacement for Optimizer::LocalBundleAdjustment (reference:
+JAX replacement for Optimizer::LocalBundleAdjustment (reference:
 src/Optimizer.cc:618/1248-1545 — g2o BlockSolver_6_3 LM over ≤60 covisible
 KFs + their points, 5+10 iterations with chi2 gating) and for the SLAM++
 block-sparse machinery underneath (CUberBlockMatrix, Schur ordering,
@@ -14,7 +14,7 @@ matrix, so 130k LoC of sparse block algebra collapses into a few einsums:
 
 Observations are a fixed-capacity [P, O] table (point-major), poses enter
 via a one-hot assignment tensor — no sparse indexing anywhere, everything
-runs on the MXU.
+is dense batched contractions.
 """
 from __future__ import annotations
 
@@ -234,8 +234,7 @@ def local_bundle_adjustment(
         S = jnp.where(act6[:, None] & act6[None, :], S, 0.0)
         S = S + jnp.diag(jnp.where(act6, 0.0, 1.0))
         bs = jnp.where(act6, bs, 0.0)
-        # S is SPD (damped): Cholesky solve (half the cost of the LU path,
-        # and XLA's TPU cholesky beats its generic lu at these sizes)
+        # S is SPD (damped): Cholesky solve (half the cost of the LU path)
         Lchol = jnp.linalg.cholesky(S)
         y = jax.scipy.linalg.solve_triangular(Lchol, bs, lower=True)
         xi_f = -jax.scipy.linalg.solve_triangular(

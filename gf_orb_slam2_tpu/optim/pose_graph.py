@@ -1,6 +1,6 @@
 """Essential-graph Sim3 pose-graph optimization.
 
-TPU-native replacement for Optimizer::OptimizeEssentialGraph (reference:
+JAX replacement for Optimizer::OptimizeEssentialGraph (reference:
 src/Optimizer.cc:2338 — g2o BlockSolver_7_3 LM over Sim3 vertices with
 edges from the spanning tree, strong-covisibility (≥100) links, and loop
 edges; scale fixed for stereo/RGB-D). Design:
@@ -11,7 +11,7 @@ edges; scale fixed for stereo/RGB-D). Design:
 - residual r_e = log_sim3(S_meas_ij ∘ S_j ∘ S_i⁻¹) ∈ ℝ⁷, Jacobians via
   batched autodiff (vmap·jacfwd over the 14 dof of the edge);
 - one dense [7K,7K] normal-equation solve per iteration (K ≤ a few hundred →
-  trivially small for the MXU), Tikhonov-damped GN with step acceptance.
+  trivially small), Tikhonov-damped GN with step acceptance.
 """
 from __future__ import annotations
 
@@ -76,30 +76,29 @@ def _get_jit(K: int, E: int, fs: bool, iters: int, damping: float):
 def optimize_pose_graph(
     prob: PoseGraphProblem, iters: int = 15, damping: float = 1e-6,
 ):
-    """Jitted entry (cached per shape): running the 15-iteration GN scan
-    eagerly paid a fresh remote compile per (K,E) shape at every loop event
-    — callers bucket K/E so steady state reuses one compiled program."""
+    """Jitted entry (cached per shape): callers bucket K/E so steady state
+    reuses one compiled program instead of compiling per loop event."""
     fn = _get_jit(prob.s.shape[0], prob.e_i.shape[0], bool(prob.fix_scale),
                   iters, damping)
     return fn(prob.s, prob.R, prob.t, prob.fixed, prob.valid, prob.e_i,
               prob.e_j, prob.e_s, prob.e_R, prob.e_t, prob.e_w)
 
 
-def prewarm_pose_graph(shapes, fix_scale: bool, iters: int = 15,
-                       damping: float = 1e-6):
-    """AOT-compile (or cache-load) the bucketed pose-graph programs so the
-    FIRST loop event never pays a mid-sequence remote compile (the r4 bench
-    collapse: the loop-closer jits were the only family with no prewarm —
-    90-250 s compiles landed mid-run). `shapes` = [(K_pad, E_pad), ...]."""
+def pose_graph_programs(shapes, fix_scale: bool, iters: int = 15,
+                        damping: float = 1e-6):
+    """[(name, jitted fn, arg specs)] for the bucketed pose-graph programs,
+    `shapes` = [(K_pad, E_pad), ...] — compiled ahead by the loop closer's
+    prewarm so the FIRST loop event never compiles mid-sequence."""
     spec = jax.ShapeDtypeStruct
     f32, i32, b8 = jnp.float32, jnp.int32, jnp.bool_
-    for K, E in shapes:
-        _get_jit(K, E, bool(fix_scale), iters, damping).lower(
-            spec((K,), f32), spec((K, 3, 3), f32), spec((K, 3), f32),
-            spec((K,), b8), spec((K,), b8),
-            spec((E,), i32), spec((E,), i32), spec((E,), f32),
-            spec((E, 3, 3), f32), spec((E, 3), f32), spec((E,), f32),
-        ).compile()
+    return [
+        (f"pose_graph_{K}x{E}", _get_jit(K, E, bool(fix_scale), iters, damping),
+         (spec((K,), f32), spec((K, 3, 3), f32), spec((K, 3), f32),
+          spec((K,), b8), spec((K,), b8),
+          spec((E,), i32), spec((E,), i32), spec((E,), f32),
+          spec((E, 3, 3), f32), spec((E, 3), f32), spec((E,), f32)))
+        for K, E in shapes
+    ]
 
 
 def _optimize_pose_graph_impl(

@@ -1,6 +1,6 @@
 """Motion-only pose optimization (per-frame bundle adjustment).
 
-TPU-native replacement for Optimizer::PoseOptimization (reference:
+JAX replacement for Optimizer::PoseOptimization (reference:
 src/Optimizer.cc:248): g2o LM over one SE3 vertex with mono/stereo unary
 edges, 4 rounds × 10 iterations with chi2 outlier gating between rounds
 (chi2 5.991 mono / 7.815 stereo, Huber kernel).

@@ -6,14 +6,13 @@ points (and their observation tables) across devices. Per LM iteration:
 
   each device: residuals/Jacobians for ITS point shard → local Hpp, bp,
   point-block inverses, T·Hll⁻¹·Tᵀ Schur contributions
-  → `psum` over the mesh (ICI collective) builds the global reduced camera
-  system S [6K,6K]
+  → `psum` over the mesh builds the global reduced camera system S [6K,6K]
   → every device solves the (replicated, tiny) S and back-substitutes ITS
   points locally. No point data ever crosses chips — only [6K,6K]+[6K]
   per iteration (~150 KB at K=64), so weak scaling is communication-light.
 
-Built with shard_map over a Mesh; the same code runs on a virtual CPU mesh
-(tests / driver dry-run) and real multi-chip slices.
+Built with shard_map over a 1-D Mesh; the same code runs on a virtual CPU
+mesh (tests / multi-device dry run) and on the GPUs of one host.
 """
 from __future__ import annotations
 
@@ -23,8 +22,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from gf_orb_slam2_tpu.geometry import lie
 from gf_orb_slam2_tpu.optim.local_ba import LocalBAProblem, _residuals, _chi2
-from gf_orb_slam2_tpu.parallel.mesh import DP_AXIS
-from gf_orb_slam2_tpu.utils.precision import einsum
+from gf_orb_slam2_tpu.utils.precision import einsum, matmul
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -32,20 +30,22 @@ HUBER_MONO = 2.4477
 HUBER_STEREO = 2.7955
 
 
-def _point_axes(mesh: Mesh):
-    """All mesh axes — point-major arrays shard over the whole mesh."""
-    return tuple(mesh.axis_names)
+def _mesh_axis(mesh: Mesh) -> str:
+    """The mesh's one axis — point-major arrays shard over it."""
+    if len(mesh.axis_names) != 1:
+        raise ValueError(f"distributed BA needs a 1-D mesh, got "
+                         f"{mesh.axis_names}")
+    return mesh.axis_names[0]
 
 
 def build_distributed_ba_step(mesh: Mesh, fx, fy, cx, cy, bf, damping=1e-4,
                               ablate_collectives: bool = False):
     """Returns a jitted function performing `iters` LM iterations of
     point-sharded BA. Point-major arrays must be sharded over the mesh
-    (leading dim divisible by mesh size); KF arrays are replicated. Works on
-    1-axis and multi-axis meshes (reductions run over all axes)."""
+    (leading dim divisible by mesh size); KF arrays are replicated."""
 
-    axes = _point_axes(mesh)
-    point_spec = P(axes if len(axes) > 1 else axes[0])
+    axes = _mesh_axis(mesh)
+    point_spec = P(axes)
     rep = P()
     # ablation harness (SCALING.md): identical per-device compute with the
     # cross-device reductions REMOVED — separates collective cost from host
@@ -94,7 +94,7 @@ def build_distributed_ba_step(mesh: Mesh, fx, fy, cx, cy, bf, damping=1e-4,
         S_cross_loc = einsum("pkac,pmdc->kmad", T1V, T1)
         bs_corr_loc = einsum("pkac,pc->ka", T1V, bl)
 
-        # ---- THE collective: reduce the camera system over the mesh (ICI)
+        # ---- THE collective: reduce the camera system over the mesh
         Hpp = psum(Hpp_loc, axes)
         bp = psum(bp_loc, axes)
         S_cross = psum(S_cross_loc, axes)
@@ -156,7 +156,7 @@ def build_distributed_ba_step(mesh: Mesh, fx, fy, cx, cy, bf, damping=1e-4,
 
 
 def build_pcg_ba_step(mesh: Mesh, fx, fy, cx, cy, bf, damping=1e-4,
-                      pcg_iters: int = 48, scatter_axis: str | None = None):
+                      pcg_iters: int = 48):
     """KF-SHARDED distributed BA step: points sharded as in
     build_distributed_ba_step, but the reduced camera system is never
     replicated — `psum_scatter` hands each device a ROW BLOCK of S
@@ -167,16 +167,12 @@ def build_pcg_ba_step(mesh: Mesh, fx, fy, cx, cy, bf, damping=1e-4,
     limitation called out in VERDICT §6).
 
     Collective budget per LM iteration: one psum_scatter of [K,K,6,6]/D +
-    pcg_iters × all_gather([K,6]) — both ride ICI inside a host; across
-    hosts the same program lays the scatter on DCN (mesh axis order decides).
+    pcg_iters × all_gather([K,6]).
     """
-    axes = _point_axes(mesh)
-    point_spec = P(axes if len(axes) > 1 else axes[0])
+    axes = _mesh_axis(mesh)
+    point_spec = P(axes)
     rep = P()
-    if scatter_axis is None:
-        scatter_axis = axes[0]
-    other_axes = tuple(a for a in axes if a != scatter_axis)
-    n_scatter = mesh.shape[scatter_axis]
+    n_scatter = mesh.shape[axes]
 
     def shard_body(kf_R, kf_t, kf_fixed, kf_valid,
                    pt_pos, pt_valid, obs_kf, obs_uv, obs_ur, obs_inv2,
@@ -225,16 +221,11 @@ def build_pcg_ba_step(mesh: Mesh, fx, fy, cx, cy, bf, damping=1e-4,
         Hpp = jax.lax.psum(Hpp_loc, axes)
         bp = jax.lax.psum(bp_loc, axes)
         bs_corr = jax.lax.psum(bs_corr_loc, axes)
-        # camera-system rows: reduce over the NON-scatter axes first (ICI),
-        # then reduce-scatter along the scatter axis (DCN on a 2D host×chip
-        # mesh) — each device along the scatter axis owns a row block; devices
-        # differing only in the other axes hold identical copies
-        S_pre = (jax.lax.psum(-S_cross_loc, other_axes) if other_axes
-                 else -S_cross_loc)
+        # camera-system rows: reduce-scatter — each device owns a row block
         S_rows = jax.lax.psum_scatter(
-            S_pre, scatter_axis, scatter_dimension=0, tiled=True)
+            -S_cross_loc, axes, scatter_dimension=0, tiled=True)
         Kb = K // n_scatter
-        idx = jax.lax.axis_index(scatter_axis)
+        idx = jax.lax.axis_index(axes)
         row_ids = idx * Kb + jnp.arange(Kb)
         D6 = jnp.eye(6, dtype=Hpp.dtype)[None] * (
             damping + lam + einsum("kii->k", Hpp)[:, None, None] / 6.0 * lam
@@ -256,7 +247,7 @@ def build_pcg_ba_step(mesh: Mesh, fx, fy, cx, cy, bf, damping=1e-4,
         def matvec(x):                               # x [K,6] replicated
             y_loc = einsum("rkab,kb->ra", S_rows, x)  # my rows
             return jax.lax.all_gather(
-                y_loc, scatter_axis, axis=0, tiled=True)   # [K,6]
+                y_loc, axes, axis=0, tiled=True)   # [K,6]
 
         def pcg(b):
             x = jnp.zeros_like(b)
@@ -315,11 +306,13 @@ def build_pcg_ba_step(mesh: Mesh, fx, fy, cx, cy, bf, damping=1e-4,
         Ct = blocks[..., 3:, :3]
         Dm = blocks[..., 3:, 3:]
         Ai = i3(A)
-        Sc = Dm - Ct @ Ai @ B
+        AiB = matmul(Ai, B)
+        CtAi = matmul(Ct, Ai)
+        Sc = Dm - matmul(Ct, AiB)
         Sci = i3(Sc)
-        TL = Ai + Ai @ B @ Sci @ Ct @ Ai
-        TR = -Ai @ B @ Sci
-        BL = -Sci @ Ct @ Ai
+        TL = Ai + matmul(matmul(AiB, Sci), CtAi)
+        TR = -matmul(AiB, Sci)
+        BL = -matmul(Sci, CtAi)
         out = jnp.concatenate([
             jnp.concatenate([TL, TR], -1),
             jnp.concatenate([BL, Sci], -1),
@@ -339,20 +332,16 @@ def build_pcg_ba_step(mesh: Mesh, fx, fy, cx, cy, bf, damping=1e-4,
 
 
 def distributed_ba(mesh, prob: LocalBAProblem, fx, fy, cx, cy, bf, iters=10,
-                   kf_sharded: bool = False, scatter_axis: str | None = None,
-                   ablate_collectives: bool = False):
-    """Run `iters` distributed LM iterations. Arrays are placed with the
-    right shardings; returns updated (kf_R, kf_t, pt_pos, cost).
+                   kf_sharded: bool = False, ablate_collectives: bool = False):
+    """Run `iters` distributed LM iterations on a 1-D mesh. Arrays are placed
+    with the right shardings; returns updated (kf_R, kf_t, pt_pos, cost).
     kf_sharded=True uses the reduce-scatter + PCG camera solve (K must be
-    divisible by the scatter-axis size). On a 2D host×chip mesh pass
-    scatter_axis=HOST_AXIS to lay the camera-system scatter on DCN."""
-    step = (build_pcg_ba_step(mesh, fx, fy, cx, cy, bf,
-                              scatter_axis=scatter_axis) if kf_sharded
+    divisible by the mesh size)."""
+    step = (build_pcg_ba_step(mesh, fx, fy, cx, cy, bf) if kf_sharded
             else build_distributed_ba_step(
                 mesh, fx, fy, cx, cy, bf,
                 ablate_collectives=ablate_collectives))
-    axes = _point_axes(mesh)
-    point_sharding = NamedSharding(mesh, P(axes if len(axes) > 1 else axes[0]))
+    point_sharding = NamedSharding(mesh, P(_mesh_axis(mesh)))
     rep_sharding = NamedSharding(mesh, P())
     kf_R = jax.device_put(prob.kf_R, rep_sharding)
     kf_t = jax.device_put(prob.kf_t, rep_sharding)

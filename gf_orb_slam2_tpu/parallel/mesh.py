@@ -1,19 +1,18 @@
-"""Device mesh helpers for multi-chip scaling.
+"""Device mesh helpers for multi-device distributed BA.
 
 The reference has NO distribution (single process, SURVEY.md §2.3 P9/—);
-this layer is the new TPU-native scaling design: keyframes/map-point blocks
-sharded over a `jax.sharding.Mesh`, Schur-complement reductions as `psum`
-over ICI, pose solve replicated (BASELINE.md north star: ≥70% weak-scaling
-efficiency of distributed BA).
+this layer is the new scaling design: keyframes/map-point blocks sharded
+over a 1-D `jax.sharding.Mesh`, Schur-complement reductions as `psum` over
+the mesh, pose solve replicated. The cards of one host are joined all to
+all, so one mesh axis is all the algorithm needs.
 """
 from __future__ import annotations
 
 import jax
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: F401
+from jax.sharding import Mesh
 
-DP_AXIS = "dp"      # map points / observations sharded over this axis (ICI)
-HOST_AXIS = "host"  # outer axis for multi-host layouts (DCN)
+DP_AXIS = "dp"      # map points / observations sharded over this axis
 
 
 def make_mesh(n_devices: int | None = None, axis: str = DP_AXIS) -> Mesh:
@@ -21,24 +20,3 @@ def make_mesh(n_devices: int | None = None, axis: str = DP_AXIS) -> Mesh:
     if n_devices is not None:
         devs = devs[:n_devices]
     return Mesh(np.asarray(devs), (axis,))
-
-
-def make_mesh2d(n_hosts: int, n_chips: int,
-                axes=(HOST_AXIS, DP_AXIS)) -> Mesh:
-    """Two-axis mesh (hosts × chips-per-host). On a real pod slice the outer
-    axis crosses DCN and the inner axis rides ICI; collectives are laid onto
-    the axis they name, so placing the camera-system scatter on HOST_AXIS
-    and the dense point reductions on DP_AXIS matches the bandwidth
-    hierarchy (scaling-book recipe: pick mesh, annotate, let XLA insert
-    collectives)."""
-    devs = np.asarray(jax.devices()[: n_hosts * n_chips])
-    return Mesh(devs.reshape(n_hosts, n_chips), axes)
-
-
-def shard_points(mesh: Mesh, arr, axis: str = DP_AXIS):
-    """Place a point-major array with its leading dim sharded over the mesh."""
-    return jax.device_put(arr, NamedSharding(mesh, P(axis)))
-
-
-def replicate(mesh: Mesh, arr):
-    return jax.device_put(arr, NamedSharding(mesh, P()))

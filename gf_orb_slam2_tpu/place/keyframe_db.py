@@ -1,6 +1,6 @@
 """Keyframe database: BoW retrieval for loop detection + relocalization.
 
-TPU-native replacement for KeyFrameDatabase (reference:
+JAX replacement for KeyFrameDatabase (reference:
 src/KeyFrameDatabase.cc — inverted index word→KFs, common-word counting,
 score accumulation over covisibility groups; DetectLoopCandidates :84,
 DetectRelocalizationCandidates :207).

@@ -1,6 +1,6 @@
 """Anticipation: future-visibility-driven local-BA budgeting.
 
-TPU-native equivalent of the reference's anticipation machinery
+JAX equivalent of the reference's anticipation machinery
 (reference: Optimizer.cc:648-1131 — virtual future keyframes extrapolated
 from buffered odometry, per-future-KF visible-map-point counts, and a local
 BA time budget in [100, 800] ms derived from them; the budget feeds

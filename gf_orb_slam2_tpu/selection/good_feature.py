@@ -1,16 +1,16 @@
 """Good-feature selection: lazier-greedy Max-logDet active matching.
 
-TPU-native replacement for Observability::runActiveMapMatching (reference:
+JAX replacement for Observability::runActiveMapMatching (reference:
 src/Observability.cc:830, IROS18/TRO20 "Good Feature Matching"): instead of
 matching every local map point, actively pick the subset that maximizes the
 log-determinant of the pose information matrix, under a per-frame budget
 (reference: constraints-per-frame, System::SetConstrPerFrame System.cc:444).
 
-Reference mechanics → TPU design:
+Reference mechanics → device design:
 - per-round random subset of size ~P/k (lazier greedy, Observability.cc:902)
   → masked uniform sampling with a jax PRNG key;
 - per-candidate logDet(curMat + ObsMat_i) scoring on 7x7 matrices (:956)
-  → one batched slogdet over the whole subset per round (vmap on MXU);
+  → one batched slogdet over the whole subset per round (vmap);
 - match-then-update sequencing (match argmax point via
   SearchByProjection_OnePoint, add its stereo row, repeat :982-1025)
   → selection is fully device-side over predicted info matrices; the
@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from gf_orb_slam2_tpu.selection.observability import logdet_psd
+from gf_orb_slam2_tpu.utils.precision import einsum
 
 
 def lazier_greedy_select(
@@ -41,8 +42,8 @@ def lazier_greedy_select(
 
     BATCHED greedy: each round scores a random candidate subset once and
     takes the top-`batch` picks before re-conditioning. The greedy loop is
-    inherently sequential, so on TPU its cost is the scan length, not the
-    per-round FLOPs (measured 23 µs/round); batching cuts rounds 8x for a
+    inherently sequential, so its cost is the scan length, not the
+    per-round FLOPs; batching cuts rounds 8x for a
     negligible logdet gap (the reference's lazier subsampling is already an
     approximation of the same submodular objective, Observability.cc:902).
     """
@@ -62,8 +63,8 @@ def lazier_greedy_select(
         k, active = xs
         cur, selected = carry
         cand = valid & ~selected
-        # lazier sampling as a MASK (no gathers/sorts — per-round cost on
-        # TPU is the kernel-chain length, not the candidate count)
+        # lazier sampling as a MASK (no gathers/sorts — per-round cost is
+        # the kernel-chain length, not the candidate count)
         sampled = cand & (jax.random.uniform(k, (P,)) < inv_l)
         sampled = jnp.where(jnp.any(sampled), sampled, cand)
         trial = cur[None] + obs_mats + eps * eye[None]
@@ -75,7 +76,7 @@ def lazier_greedy_select(
         vals, pick = jax.lax.top_k(jnp.maximum(score, fb), B)
         ok = jnp.isfinite(vals) & active
         selected = selected.at[pick].max(ok)  # top_k picks are distinct
-        cur = cur + jnp.einsum(
+        cur = cur + einsum(
             "b,bij->ij", ok.astype(obs_mats.dtype), obs_mats[pick]
         )
         return (cur, selected), jnp.where(ok, pick, -1)

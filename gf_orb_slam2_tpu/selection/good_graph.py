@@ -1,6 +1,6 @@
 """Good-graph selection: budget-aware KF subset for local BA.
 
-TPU-native replacement for the SLAM++ good-graph solver (reference:
+JAX replacement for the SLAM++ good-graph solver (reference:
 Thirdparty/SLAM++/include/slam/NonlinearSolver_GoodGraph.h — builds lambda,
 Schur-complements landmarks to the pose-only SC matrix (:978-1047), then
 LazierGreedy_Selection (:1056) picks the KF subset maximizing logDet via
@@ -61,8 +61,8 @@ def _chol6(M, eps=1e-9):
 
 def _solve_lower6(L, rhs):
     """Unrolled forward substitution: y = L⁻¹ rhs for a 6x6 lower L and
-    [6, M] rhs (jnp.linalg triangular solves carry LAPACK-style overheads on
-    TPU; six fused FMA rows do not)."""
+    [6, M] rhs (six fused FMA rows instead of a library triangular-solve
+    call on a tiny matrix)."""
     ys = []
     for j in range(6):
         acc = rhs[j]

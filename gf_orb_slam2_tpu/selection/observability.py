@@ -1,6 +1,6 @@
 """Observability: per-landmark measurement Jacobians + information matrices.
 
-TPU-native replacement for the Observability class (reference:
+JAX replacement for the Observability class (reference:
 src/Observability.cc, include/Observability.h): the good-feature engine's
 math substrate. The reference builds per-point Jacobians H13 (∂h/∂p), H47
 (∂h/∂q) with hand-derived quaternion algebra (compute_H_subblock_complete

@@ -1,6 +1,6 @@
 """The SLAM map as fixed-capacity SoA arrays with a host coordinator.
 
-TPU-native replacement for the reference's L2 pointer data model — Map,
+JAX replacement for the reference's L2 pointer data model — Map,
 KeyFrame, MapPoint, and their per-object mutexes (reference: src/Map.cc,
 src/KeyFrame.cc, src/MapPoint.cc; locks described in SURVEY.md §5). Instead
 of heap objects + fine-grained locks shared by three threads, ALL map state
@@ -32,12 +32,11 @@ from gf_orb_slam2_tpu.config import CapacityConfig
 
 def _locked(fn):
     """Store mutators self-lock (RLock — reentrant under callers that already
-    hold it): the r5 TPU arc collapse traced to a TOCTOU between an UNLOCKED
-    add_keyframe on the tracker path and DeviceKFMirror construction on the
-    prewarm thread — the mirror's initial copy missed the row AND the
-    mark_row check saw kf_mirror=None, leaving the row permanently stale on
-    the TPU delta-sync path (CPU full-refresh self-heals, which is why no
-    CPU test caught it)."""
+    hold it): a TOCTOU between an UNLOCKED add_keyframe on the tracker path
+    and DeviceKFMirror construction on the prewarm thread let the mirror's
+    initial copy miss the row AND the mark_row check see kf_mirror=None,
+    leaving the row permanently stale on the delta-sync path (CPU
+    full-refresh self-heals, which is why no CPU test caught it)."""
     import functools
 
     @functools.wraps(fn)

@@ -1,12 +1,12 @@
 """Monocular map initialization: batched H/F RANSAC + motion recovery.
 
-TPU-native replacement for the Initializer class (reference:
+JAX replacement for the Initializer class (reference:
 src/Initializer.cc — launches two std::threads computing a homography and a
 fundamental matrix RANSAC in parallel (Initializer.cc:44), scores them,
 picks by the SH/(SH+SF) ratio, and recovers motion via Faugeras (H) or the
 essential matrix (F)).
 
-TPU design (SURVEY.md §2.3 P4): ALL RANSAC hypotheses of BOTH models run as
+Device design (SURVEY.md §2.3 P4): ALL RANSAC hypotheses of BOTH models run as
 one batched program — [S,8]-sampled minimal sets, batched normalized DLT via
 eigh of AᵀA, batched symmetric-transfer scoring, argmax. Motion recovery:
 - from F: E = KᵀFK, SVD → 4 (R,t) candidates, cheirality vote (batched

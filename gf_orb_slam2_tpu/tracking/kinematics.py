@@ -1,6 +1,6 @@
 """Constant-velocity kinematic state + piecewise-linear (PWLS) prediction.
 
-TPU-native replacement for the Observability class's kinematic machinery
+JAX replacement for the Observability class's kinematic machinery
 (reference: include/Observability.h:266 `predictPWLSVec`, the 13-dim state
 Xv = [p(3), q(4), v(3), ω(3)], and the instantaneous/process Jacobians
 tested by test/test_Kine_1.cpp and test_Kine_2.cpp). Used for:

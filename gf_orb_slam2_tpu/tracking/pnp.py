@@ -1,6 +1,6 @@
 """PnP RANSAC: camera pose from 3D-2D matches without a prior pose.
 
-TPU-native replacement for PnPsolver (reference: src/PnPsolver.cc — EPnP
+JAX replacement for PnPsolver (reference: src/PnPsolver.cc — EPnP
 control-point parametrization inside a sequential RANSAC loop with
 Gauss-Newton beta refinement, used by Tracking::Relocalization
 Tracking.cc:2615). Here the WHOLE RANSAC runs as one device program:

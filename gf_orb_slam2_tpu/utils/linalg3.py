@@ -1,9 +1,8 @@
 """Closed-form batched 3x3 linear algebra (adjugate / Cramer).
 
-TPU's LAPACK-style ops (eigh/svd/lu) carry large fixed costs on tiny batched
-matrices (measured: dominant in triangulation and BA inner loops on this
-chip). A 3x3 inverse/solve is nine fused multiply-adds — pure VPU work that
-XLA folds into the surrounding program.
+Library decompositions (eigh/svd/lu) carry large fixed costs on tiny batched
+matrices. A 3x3 inverse/solve is nine fused multiply-adds — elementwise work
+that XLA folds into the surrounding program.
 """
 from __future__ import annotations
 

@@ -1,9 +1,13 @@
-"""Full-f32 matmul helpers for small-matrix geometry/optimization code.
+"""Full-f32 contraction helpers for jitted device code.
 
-TPU default matmul precision is bf16 passes on the MXU — fine for the big
-feature/matching kernels, but catastrophic for 3x3/4x4 pose math and normal
-equations (observed: 0.045 m triangulation error vs 1e-3 at full precision).
-All geometry and BA modules route their contractions through these helpers.
+On an NVIDIA GPU an f32 dot or convolution left at default precision may run
+in TF32, which keeps a 10-bit mantissa (about three decimal digits). That is
+catastrophic for 3x3/4x4 pose math and normal equations, and it turns a
+one-hot "pick" into a rounding of the value it picks. Every f32 contraction
+in jitted code therefore states its precision: through these helpers, or as
+an explicit bf16 cast with f32 accumulation where rounding is harmless.
+tests/test_precision.py lowers the hot programs and rejects any f32
+dot_general or convolution left at default precision.
 """
 import functools
 

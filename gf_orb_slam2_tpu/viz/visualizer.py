@@ -3,7 +3,7 @@
 Replaces the reference's Pangolin GUI thread (Viewer/FrameDrawer/MapDrawer,
 src/Viewer.cc:55, src/FrameDrawer.cc:38, src/MapDrawer.cc:42-176) and the
 ROS rviz marker publisher (src/MapPublisher.cc:116) with offline writers —
-a headless TPU host has no GL/ROS, so visual state is rendered to files:
+a headless accelerator host has no GL/ROS, so visual state is rendered to files:
 - `draw_frame`: keypoint/match overlay image (FrameDrawer parity);
 - `plot_map`: top-down + side map/trajectory/covisibility plot;
 - `export_ply`: point cloud + camera frustums for external viewers

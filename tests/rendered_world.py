@@ -1,51 +1,88 @@
-"""Real-texture 3D rendered stereo sequences with exact ground truth.
+"""Textured 3D rendered stereo sequences with exact ground truth.
 
-The closest possible stand-in for real benchmark sequences in this
-zero-egress environment: a box room whose six faces are textured with the
-REAL images shipped in the reference's test fixtures
-(/root/reference/test/EuRoC_l.png etc. — the same files the reference's
-test_Stereo.cpp uses), rendered by ray casting with genuine perspective,
-depth variation, parallax and rotation. Unlike the bench's fronto-parallel
-plane, features here live at many depths and orientations, so rBRIEF
-repeatability, stereo matching and the KF policy face realistic image-domain
-conditions. Ground truth is exact → ATE gates are meaningful.
+The closest possible stand-in for real benchmark sequences without any
+dataset: a box room whose faces carry seeded procedural textures (two-octave
+bicubic noise), rendered by ray casting with genuine perspective, depth
+variation, parallax and rotation. Unlike the bench's fronto-parallel plane,
+features here live at many depths and orientations, so rBRIEF repeatability,
+stereo matching and the KF policy face realistic image-domain conditions.
+Ground truth is exact → ATE gates are meaningful. Needs only NumPy.
 """
 from __future__ import annotations
 
+import hashlib
 import os
-from typing import List, Optional, Tuple
+from typing import Callable, List, Tuple
 
 import numpy as np
 
-_FIXTURES = [
-    "/root/reference/test/EuRoC_l.png",
-    "/root/reference/test/TUM_l.png",
-    "/root/reference/test/EuRoC_r.png",
-    "/root/reference/test/TUM_r.png",
-]
+# rendered-frame cache: a fixed, gitignored directory inside the checkout
+RENDER_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".render_cache")
+
+
+def cached_frames(name: str, gt: np.ndarray,
+                  render: Callable[[], np.ndarray]) -> np.ndarray:
+    """uint8 frames [F,2,H,W] for a rendered sequence, from the render cache
+    when the cached ground truth matches `gt` (a trajectory change shifts gt
+    and invalidates the entry; a change to this file renames it), else from
+    `render()`, which is then cached. The write goes through a rename, so a
+    concurrent reader never sees a partial file."""
+    with open(__file__, "rb") as f:
+        tag = hashlib.sha1(f.read()).hexdigest()[:10]
+    stem, ext = os.path.splitext(name)
+    path = os.path.join(RENDER_CACHE_DIR, f"{stem}-{tag}{ext}")
+    if os.path.exists(path):
+        z = np.load(path)
+        if (z["gt"].shape == gt.shape
+                and np.allclose(z["gt"], gt, atol=1e-6)):
+            return z["imgs"]
+    imgs = render()
+    os.makedirs(RENDER_CACHE_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, imgs=imgs, gt=gt)
+    os.replace(tmp, path)
+    return imgs
+
+
+def _cubic_weights(n_src: int, n_dst: int) -> np.ndarray:
+    """[n_dst, n_src] bicubic resampling matrix: Keys kernel with a=-0.75,
+    half-pixel centres and replicated borders — the INTER_CUBIC convention
+    of the usual image libraries."""
+    a = -0.75
+    f = (np.arange(n_dst) + 0.5) * (n_src / n_dst) - 0.5
+    s = np.floor(f)
+    x = (f - s).astype(np.float32)
+    c0 = ((a * (x + 1) - 5 * a) * (x + 1) + 8 * a) * (x + 1) - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + 1
+    c2 = ((a + 2) * (1 - x) - (a + 3)) * (1 - x) * (1 - x) + 1
+    c3 = 1 - c0 - c1 - c2
+    taps = np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3)[None, :],
+                   0, n_src - 1)
+    w = np.zeros((n_dst, n_src), np.float32)
+    np.add.at(w, (np.repeat(np.arange(n_dst), 4), taps.reshape(-1)),
+              np.stack([c0, c1, c2, c3], -1).reshape(-1))
+    return w
+
+
+def _resize_cubic(img: np.ndarray, size: int) -> np.ndarray:
+    """Bicubic up-sampling of a square float32 image to [size, size]."""
+    h, w = img.shape
+    return (_cubic_weights(h, size) @ img.astype(np.float32)
+            @ _cubic_weights(w, size).T).astype(np.float32)
 
 
 def _load_textures(size=1024) -> List[np.ndarray]:
-    import cv2
-
+    """Six face textures from seed 0: coarse noise plus finer detail, each
+    up-sampled bicubically (the floor and ceiling reuse texture 0)."""
+    rng = np.random.default_rng(0)
     texs = []
-    for p in _FIXTURES:
-        if os.path.exists(p):
-            img = cv2.imread(p, cv2.IMREAD_GRAYSCALE)
-            if img is not None:
-                texs.append(cv2.resize(img, (size, size)).astype(np.float32))
-    if not texs:  # fixture-free fallback: fractal noise
-        rng = np.random.default_rng(0)
-        for _ in range(4):
-            t = rng.uniform(0, 255, (size // 8, size // 8)).astype(np.float32)
-            t = cv2.resize(t, (size, size), interpolation=cv2.INTER_CUBIC)
-            t += cv2.resize(
-                rng.uniform(-60, 60, (size // 2, size // 2)).astype(np.float32),
-                (size, size), interpolation=cv2.INTER_CUBIC)
-            texs.append(np.clip(t, 0, 255))
-    while len(texs) < 6:
-        texs.append(texs[len(texs) % len(texs)])
-    return texs[:6]
+    for _ in range(4):
+        t = _resize_cubic(rng.uniform(0, 255, (size // 8, size // 8)), size)
+        t += _resize_cubic(rng.uniform(-60, 60, (size // 2, size // 2)), size)
+        texs.append(np.clip(t, 0, 255))
+    return texs + [texs[0], texs[0]]
 
 
 class RoomWorld:

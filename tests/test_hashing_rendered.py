@@ -4,7 +4,7 @@ The reference's ICRA19 behavior: once the map exceeds MAP_SIZE_TRIGGER_HASHING
 (2000 points, Tracking.h:66), TrackLocalMap assembles the local map by
 multi-index-hash retrieval instead of (or combined with) covisibility
 traversal (UpdateLocalPointsByHashing Tracking.cc:2895), under the 20 ms
-OTS feedback controller (Hashing.h:74-79). Here: the same real-texture
+OTS feedback controller (Hashing.h:74-79). Here: the same textured
 circuit as the loop gate, tracked with local_map_mode=COMBINED and hashing
 enabled — asserting the hash path actually RAN (map crosses the trigger,
 queries issued, OTS re-selection exercised) and that accuracy stays at
@@ -13,9 +13,6 @@ parity with the covisibility-only arm.
 import dataclasses
 
 import numpy as np
-import pytest
-
-pytest.importorskip("cv2")
 
 from tests.test_loop_rendered import (  # noqa: E402  (shared render cache)
     BF, CX, CY, FX, FY, _rendered_frames,

@@ -1,4 +1,4 @@
-"""Kinematics tests — the TPU analogue of test_Kine_1/test_Kine_2 golden
+"""Kinematics tests — the JAX analogue of test_Kine_1/test_Kine_2 golden
 tests: closed-form invariants instead of MATLAB constants."""
 import jax.numpy as jnp
 import numpy as np

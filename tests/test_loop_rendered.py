@@ -1,7 +1,7 @@
-"""Loop closing on a REAL-texture rendered revisit.
+"""Loop closing on a textured rendered revisit.
 
-The VERDICT-§3 acceptance test: a closed circular trajectory in the
-ray-cast room (real reference-image textures) must (a) detect the loop on
+The acceptance test for loop closing: a closed circular trajectory in the
+ray-cast room (tests/rendered_world.py) must (a) detect the loop on
 revisit, (b) fuse duplicate landmarks (SearchAndFuse), and (c) end with a
 consistent map — measured as ATE not degrading versus the loop-disabled
 run of the same sequence (drift on this short loop is small, so the gate is
@@ -9,11 +9,8 @@ detection + fusion + no-harm rather than a large ATE delta)."""
 import dataclasses
 
 import numpy as np
-import pytest
 
-pytest.importorskip("cv2")
-
-from tests.rendered_world import RoomWorld, trajectory_loop
+from tests.rendered_world import RoomWorld, cached_frames, trajectory_loop
 
 from gf_orb_slam2_tpu.config import (
     CameraConfig, CapacityConfig, LoopClosingConfig, ORBConfig, Sensor,
@@ -35,43 +32,25 @@ _FRAMES_CACHE = {}
 def _rendered_frames():
     """Render the circuit ONCE per process; both the loop-on and loop-off
     arms consume the same frames (the render is ~2/3 of each arm's cost).
-    Frames are also disk-cached (like bench.py's tour cache), keyed by the
-    freshly computed ground truth so any scene/trajectory change
-    invalidates the cache automatically."""
+    Frames are also disk-cached (tests/rendered_world.cached_frames)."""
     if "frames" in _FRAMES_CACHE:
         return _FRAMES_CACHE["poses"], _FRAMES_CACHE["frames"]
-    import os
-
     poses = trajectory_loop(N_FRAMES, radius=2.2, center=(0.0, 0.0, 7.0),
                             loops=1.27)
     gt = np.stack([np.concatenate([R.ravel(), t]) for R, t in poses])
-    cache = os.path.join(os.path.expanduser("~"), ".cache",
-                         "gf_slam_rendered", "loop_circuit_v1.npz")
-    frames = None
-    if os.path.exists(cache):
-        z = np.load(cache)
-        if z["gt"].shape == gt.shape and np.allclose(z["gt"], gt, atol=1e-6):
-            imgs = z["imgs"]
-            frames = [(imgs[i, 0].astype(np.float32),
-                       imgs[i, 1].astype(np.float32))
-                      for i in range(imgs.shape[0])]
-    if frames is None:
+
+    def render():
         world = RoomWorld(width=9.0, height=5.0, length=14.0)
-        frames = [
-            world.render_stereo(R_cw, t_cw, baseline=BASELINE,
-                                fx=FX, fy=FY, cx=CX, cy=CY)
+        return np.stack([
+            np.clip(np.stack(world.render_stereo(
+                R_cw, t_cw, baseline=BASELINE, fx=FX, fy=FY, cx=CX, cy=CY)),
+                0, 255).astype(np.uint8)
             for R_cw, t_cw in poses
-        ]
-        imgs = np.stack([
-            np.stack([np.clip(l, 0, 255).astype(np.uint8),
-                      np.clip(r, 0, 255).astype(np.uint8)])
-            for l, r in frames
         ])
-        os.makedirs(os.path.dirname(cache), exist_ok=True)
-        np.savez(cache, imgs=imgs, gt=gt)
-        frames = [(imgs[i, 0].astype(np.float32),
-                   imgs[i, 1].astype(np.float32))
-                  for i in range(imgs.shape[0])]
+
+    imgs = cached_frames("loop_circuit_v1.npz", gt, render)
+    frames = [(imgs[i, 0].astype(np.float32), imgs[i, 1].astype(np.float32))
+              for i in range(imgs.shape[0])]
     _FRAMES_CACHE["frames"] = frames
     _FRAMES_CACHE["poses"] = poses
     return poses, frames
@@ -141,9 +120,9 @@ def test_async_headline_config():
         for fid, T in slam.track_stereo_pipelined(l, r, i / 20.0):
             est[fid] = T
         gt[i / 20.0] = -R_cw.T @ t_cw
-        # bounded-lag throttle: on this 2-core CI host the workers cannot
-        # keep up with the exploration rate at full frame speed (the TPU
-        # sustains it — bench.py gates that config on real hardware);
+        # bounded-lag throttle: on a small CPU host the workers cannot
+        # keep up with the exploration rate at full frame speed (bench.py
+        # and chip_smoke.py gate that config on the accelerator);
         # letting the queues grow unboundedly starves the local map and the
         # test measures host speed, not correctness. Real concurrency is
         # still exercised — workers run while the next frames track.

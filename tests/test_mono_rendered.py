@@ -1,8 +1,7 @@
-"""Monocular end-to-end on the REAL-texture rendered circuit (VERDICT r4
-missing #2: the reference's headline evaluation regime is EuRoC MONO with
-scale-drifting loop closure — README.md:26-29, LoopClosing.cc:253 ComputeSim3
-with scale, Optimizer.cc:2338 OptimizeEssentialGraph seeded from
-CorrectedSim3).
+"""Monocular end-to-end on the textured rendered circuit (the reference's
+headline evaluation regime is EuRoC MONO with scale-drifting loop closure —
+README.md:26-29, LoopClosing.cc:253 ComputeSim3 with scale,
+Optimizer.cc:2338 OptimizeEssentialGraph seeded from CorrectedSim3).
 
 The same closed circuit as tests/test_loop_rendered.py, tracked MONOCULAR:
 init from parallax, constant-velocity tracking, keyframe mapping, loop
@@ -11,9 +10,6 @@ the essential graph distributes it). Monocular ATE is evaluated after
 7-DoF (Sim3/Umeyama-with-scale) alignment — absolute scale is unobservable.
 """
 import numpy as np
-import pytest
-
-pytest.importorskip("cv2")
 
 from tests.test_loop_rendered import (  # noqa: E402  (shared render cache)
     BF, CX, CY, FX, FY, _rendered_frames,

@@ -10,9 +10,6 @@ next textured frames — without the system resetting the map — and finish
 the tour at normal accuracy.
 """
 import numpy as np
-import pytest
-
-pytest.importorskip("cv2")
 
 from tests.test_loop_rendered import (  # noqa: E402  (shared render cache)
     BF, CX, CY, FX, FY, _rendered_frames,

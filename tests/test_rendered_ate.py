@@ -1,15 +1,11 @@
-"""End-to-end accuracy on REAL-texture rendered 3D sequences.
+"""End-to-end accuracy on textured rendered 3D sequences.
 
-The strongest accuracy gate available in this zero-egress environment: a
-ray-cast room textured with the reference's real test images
-(tests/rendered_world.py) — realistic texture statistics, multi-depth
+The strongest accuracy gate available without datasets: a ray-cast room
+with seeded procedural textures (tests/rendered_world.py) — multi-depth
 geometry, perspective, rotation — tracked end-to-end through the full
 System, gated on ATE RMSE against the exact ground truth via the
 first-party evaluator (io/evaluation.py)."""
 import numpy as np
-import pytest
-
-pytest.importorskip("cv2")
 
 from tests.rendered_world import RoomWorld, trajectory_arc
 

@@ -1,13 +1,12 @@
 #!/usr/bin/env python
-"""Audit the distributed-BA collectives per LM iteration, per mesh axis.
+"""Audit the distributed-BA collectives per LM iteration.
 
-Lowers both BA layouts on a virtual mesh and parses the optimized HLO for
-collective ops (all-reduce / reduce-scatter / all-gather), attributing each
-to a mesh axis via its replica groups and summing payload bytes. This is the
-measured per-axis traffic table for SCALING.md (VERDICT r2 next#7) — on a
-real host×chip slice the HOST axis rides DCN and the chip axis rides ICI.
+Lowers both BA layouts on a virtual 1-D mesh of 4 devices (the cards of one
+host) and parses the optimized HLO for collective ops (all-reduce /
+reduce-scatter / all-gather), summing payload bytes per op kind. This is the
+per-iteration traffic table for SCALING.md.
 
-  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=4 \
       python tools/collective_audit.py
 """
 import os
@@ -18,7 +17,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 flags = os.environ.get("XLA_FLAGS", "")
 if "host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
-        flags + " --xla_force_host_platform_device_count=8").strip()
+        flags + " --xla_force_host_platform_device_count=4").strip()
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -62,22 +61,13 @@ def collective_table(hlo: str):
     return out
 
 
-def axis_of(groups: str, mesh_shape) -> str:
-    """Attribute a replica group string to a mesh axis by its group size
-    and stride (2D host×chip mesh, row-major device order)."""
+def group_size(groups: str) -> int:
+    """Number of devices in the first replica group."""
     first = re.search(r"\{([\d,]+)\}", "{" + groups + "}")
-    ids = [int(x) for x in first.group(1).split(",")] if first else []
-    n_host, n_chip = mesh_shape
-    if len(ids) == n_host * n_chip:
-        return "both"
-    if len(ids) == n_chip and all(b - a == 1 for a, b in zip(ids, ids[1:])):
-        return "chip(ICI)"
-    if len(ids) == n_host:
-        return "host(DCN)"
-    return f"size{len(ids)}"
+    return len(first.group(1).split(",")) if first else 0
 
 
-def lower_and_audit(kf_sharded, scatter_axis, mesh, prob, tag):
+def lower_and_audit(kf_sharded, mesh, prob, tag):
     from gf_orb_slam2_tpu.parallel.dist_ba import (
         build_distributed_ba_step, build_pcg_ba_step,
     )
@@ -85,13 +75,10 @@ def lower_and_audit(kf_sharded, scatter_axis, mesh, prob, tag):
 
     fx = fy = 450.0
     if kf_sharded:
-        step = build_pcg_ba_step(mesh, fx, fy, 320.0, 240.0, 45.0,
-                                 scatter_axis=scatter_axis)
+        step = build_pcg_ba_step(mesh, fx, fy, 320.0, 240.0, 45.0)
     else:
         step = build_distributed_ba_step(mesh, fx, fy, 320.0, 240.0, 45.0)
-    axes = tuple(mesh.axis_names)
-    pspec = P(axes if len(axes) > 1 else axes[0])
-    psh = NamedSharding(mesh, pspec)
+    psh = NamedSharding(mesh, P(mesh.axis_names[0]))
     rsh = NamedSharding(mesh, P())
     args = (
         jax.device_put(prob["kf_R"], rsh), jax.device_put(prob["kf_t"], rsh),
@@ -108,12 +95,9 @@ def lower_and_audit(kf_sharded, scatter_axis, mesh, prob, tag):
     )
     hlo = jax.jit(step).lower(*args).compile().as_text()
     rows = collective_table(hlo)
-    mesh_shape = tuple(mesh.devices.shape) if mesh.devices.ndim == 2 else (
-        1, mesh.devices.size)
     per_axis = {}
     for op, nbytes, groups in rows:
-        ax = axis_of(groups, mesh_shape)
-        key = (ax, op)
+        key = (f"group{group_size(groups)}", op)
         per_axis[key] = per_axis.get(key, (0, 0))
         per_axis[key] = (per_axis[key][0] + 1, per_axis[key][1] + nbytes)
     print(f"\n== {tag} (per LM iteration, per device) ==")
@@ -125,9 +109,7 @@ def lower_and_audit(kf_sharded, scatter_axis, mesh, prob, tag):
 
 
 def main():
-    from gf_orb_slam2_tpu.parallel.mesh import (
-        DP_AXIS, HOST_AXIS, make_mesh, make_mesh2d,
-    )
+    from gf_orb_slam2_tpu.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(0)
     K, P, O = 64, 32768, 6
@@ -143,13 +125,9 @@ def main():
         obs_inv2=np.ones((P, O), np.float32),
         obs_valid=np.ones((P, O), bool),
     )
-    mesh1 = make_mesh(8)
-    lower_and_audit(False, None, mesh1, prob, "point-sharded, 1x8 mesh")
-    lower_and_audit(True, None, mesh1, prob, "kf-sharded PCG, 1x8 mesh")
-    mesh2 = make_mesh2d(2, 4)
-    lower_and_audit(False, None, mesh2, prob, "point-sharded, 2x4 host*chip")
-    lower_and_audit(True, HOST_AXIS, mesh2, prob,
-                    "kf-sharded PCG (host scatter), 2x4 host*chip")
+    mesh = make_mesh(4)
+    lower_and_audit(False, mesh, prob, "point-sharded, 4-device mesh")
+    lower_and_audit(True, mesh, prob, "kf-sharded PCG, 4-device mesh")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Wall-clock breakdown of the pipelined tracking loop on the real TPU:
+"""Wall-clock breakdown of the pipelined tracking loop on the device:
 complete (fetch-wait + bookkeeping) / prepare / upload / dispatch segments,
 split into frames WITH and WITHOUT keyframe events (the mapper runs inline
 on KF frames and dominates them; the no-KF median is the steady-state

@@ -1,4 +1,4 @@
-"""Per-frame wall-clock stage breakdown of the live System on the real TPU.
+"""Per-frame wall-clock stage breakdown of the live System on the device.
 
 Wraps the tracker/system stage methods with perf_counter timers (no library
 changes) and separately accounts the blocking device_get inside the fused
